@@ -1,19 +1,19 @@
-"""kmer_id_tpu — a TPU-native metagenomic read classifier.
+"""kmer_id_tpu — a JAX metagenomic read classifier.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 ``mmammel8/kmer_id`` reference (see SURVEY.md): discriminative 30-mer probe
 database construction, streaming FASTQ/FASTA classification with
 most-specific-common-ancestor taxonomy voting, and abundance report rollups —
-redesigned for TPU hardware rather than translated from the reference C++.
+redesigned for a data-parallel accelerator (an NVIDIA H100) rather than
+translated from the reference C++.
 
-Layer map (mirrors SURVEY.md §1, reimagined TPU-first):
+Layer map (mirrors SURVEY.md §1):
 
 * ``core``    — genomic bit-ops (2-bit codec, canonical k-mers), taxonomy
                 (vectorized MSCA via ancestor-at-depth tables), quality trim.
 * ``ops``     — device kernels: k-mer extraction, fingerprint candidate
-                lookup, rank-compaction candidate selection (Pallas TPU
-                kernel with a fused-jnp fallback, ops/compact.py), sorted
-                two-word binary-search lookup, ordered MSCA fold.
+                lookup, rank-compaction candidate selection (ops/compact.py),
+                sorted two-word binary-search lookup, ordered MSCA fold.
 * ``db``      — probe database: text format parity, packed sorted artifact,
                 sort-based builder (pass1 CA-merge / pass2 outgroup subtraction
                 / pass3 gated emission with entropy filter).

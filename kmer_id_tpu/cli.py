@@ -42,6 +42,10 @@ def _add_mesh_args(p):
                    help="write a jax.profiler trace of the run to DIR")
 
 
+# subcommands that classify on the device (the others run on the host only)
+_DEVICE_CMDS = ("classify-nx", "classify-jobs", "classify-m3", "mitokmer", "readc")
+
+
 def _make_classifier(db, cfg, args):
     if args.mesh_data * args.mesh_db > 1:
         from kmer_id_tpu.parallel import (
@@ -51,12 +55,16 @@ def _make_classifier(db, cfg, args):
         )
 
         mesh = make_mesh(data=args.mesh_data, db=args.mesh_db)
-        cls = (
-            ShardedFpClassifier
-            if getattr(args, "engine", "fp") == "fp"
-            else ShardedClassifier
+        if getattr(args, "engine", "fp") != "fp":
+            return ShardedClassifier(
+                db.packed, db.taxonomy, mesh, cfg.batch_size, cfg.max_len
+            )
+        from kmer_id_tpu.engine.pipeline import load_or_build_fpdb
+
+        return ShardedFpClassifier(
+            db.packed, db.taxonomy, mesh, cfg.batch_size, cfg.max_len,
+            fpdb=load_or_build_fpdb(db, getattr(args, "cache_dir", None)),
         )
-        return cls(db.packed, db.taxonomy, mesh, cfg.batch_size, cfg.max_len)
     from kmer_id_tpu.engine.pipeline import make_classifier
 
     return make_classifier(db, cfg, cache_dir=getattr(args, "cache_dir", None))
@@ -141,6 +149,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     set_verbosity(args.verbose)
 
+    from kmer_id_tpu.utils.device import device_summary, setup_compile_cache
+
+    setup_compile_cache()
+
     # Multi-host bring-up must happen before ANYTHING instantiates a JAX
     # backend (an earlier backend touch would silently latch a single-process
     # device view); DB loading below imports jax transitively.
@@ -162,6 +174,10 @@ def main(argv=None):
         log(f"health: {h}")
         if not h["ok"]:
             raise SystemExit(f"device health check failed: {h}")
+
+    if args.cmd in _DEVICE_CMDS:
+        d = device_summary()
+        log(f"devices: platform={d['platform']} kind={d['kind']} count={d['count']}")
 
     if args.cmd == "build-db":
         if args.spill:

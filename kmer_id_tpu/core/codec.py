@@ -15,8 +15,9 @@ no code is copied from it):
 * Key⇄string conversion is most-significant-base-first
   (``kmer_build_vf6.cpp:63-72``).
 
-Device-side representation: TPUs have no fast 64-bit integer path, so keys are
-carried as two ``uint32`` words — ``hi`` = bits [32, 60) (28 bits) and ``lo`` =
+Device-side representation: keys are carried as two ``uint32`` words (JAX
+runs with 64-bit integers disabled by default, and the split keeps every
+device table and gather 32-bit) — ``hi`` = bits [32, 60) (28 bits) and ``lo`` =
 bits [0, 32) — with lexicographic (hi, lo) comparisons.  Host code uses
 ``np.uint64`` freely; :func:`split_key` / :func:`join_key` convert.
 """

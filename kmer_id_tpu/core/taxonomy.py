@@ -14,7 +14,7 @@ Neither is associative over arbitrary hit sets (msca is commutative but
 order-dependent in folds mixing incomparable and comparable hits), so exact
 parity requires ordered folds; see ``ops/fold.py``.
 
-TPU-native design: instead of pointer walks, we precompute an
+Device design: instead of pointer walks, we precompute an
 *ancestor-at-depth* table ``anc[t, d]`` (the ancestor of ``t`` at depth ``d``,
 -1 beyond ``depth[t]``).  Then
 
@@ -23,7 +23,7 @@ TPU-native design: instead of pointer walks, we precompute an
 * ``lca(x, y)`` = ``anc[x, d*]`` for the largest ``d* <= min(depths)`` with
   ``anc[x, d*] == anc[y, d*]`` — a log2(max_depth) binary search of gathers.
 
-Both are branch-free and batch over whole read batches on the VPU.
+Both are branch-free and batch over whole read batches.
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
 """2-choice bucketized cuckoo layout for O(1)-gather device lookups.
 
 The sorted-array binary search costs ~log2(bucket) gather rounds per query;
-on TPU each gather round over the whole query batch is an HBM random-access
-pass, so lookup cost is directly proportional to gather rounds.  This layout
+each gather round over the whole query batch is a random-access pass over
+device memory, so lookup cost is directly proportional to gather rounds.  This layout
 gets it down to **two wide row-gathers per query**:
 
 * buckets of 4 slots, each slot a 16-byte row ``[key_hi, key_lo, target,
   probe_idx]``; a bucket is one 64-byte row — a single gather fetches it;
 * every key lives in one of two buckets derived from two 32-bit mixes of its
   key words; lookup gathers both candidate buckets and compares 8 slots
-  vectorized (VPU);
+  vectorized;
 * the row carries the probe's target *and* its index in the canonical sorted
   order, so the hit needs no further gathers and the `seen` bitmap stays
   indexed by sorted position (ucount/sharding unchanged).

@@ -154,7 +154,7 @@ def fold_host_many(tax, seqs: list) -> np.ndarray:
     reads, so it runs as max_hits column steps of the ALREADY-vectorized
     ``tax.msca`` over the whole batch — the long-read lane folds ~1000
     genome contigs in ~20 vectorized steps instead of ~20,000 scalar msca
-    calls (which were 70% of the round-3 lane's wall time).
+    calls.
     """
     r = len(seqs)
     out = np.zeros(r, dtype=np.int64)
@@ -257,9 +257,9 @@ class Classifier:
     def submit_batch(self, seen, batch: Batch):
         """Enqueue one batch on the device; returns (seen', PendingBatch).
 
-        Asynchronous by design: dispatch/transfer round-trip latency is the
-        dominant per-batch cost on remote-attached TPUs, so the sample loop
-        keeps several batches in flight and collects results later.
+        Asynchronous by design: the sample loop keeps several batches in
+        flight and collects results later, so host decode overlaps device
+        work and transfers.
         """
         codes = jnp.asarray(batch.codes)
         lengths = jnp.asarray(batch.lengths)

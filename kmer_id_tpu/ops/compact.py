@@ -7,32 +7,27 @@ order** (ascending window position; ties across planes in plane order — the
 order the reference's per-window loop would discover them,
 ``newkmer_10nx.cpp:529-603``).
 
-The round-2 implementation was a two-operand ``jax.lax.sort`` over the
-[B, 3P] interleaved plane (~7 ms/batch at bench scale — the sort network
-materializes every round in HBM).  This module replaces it with
-**rank compaction**: one cumulative-sum pass assigns each valid candidate its
-output rank, then ``max_hits`` masked reductions select the rank-j candidate
-of every row.  Selection is pure elementwise compare/select/add — no sort
-network, no scatter — and two formulations are provided:
+**Rank compaction** does this without a sort network or a scatter: one
+cumulative-sum pass assigns each valid candidate its output rank, then
+``max_hits`` masked reductions select the rank-j candidate of every row.
+Selection is pure elementwise compare/select/add.  Formulations:
 
-* :func:`compact_ranks` — jnp; XLA fuses each rank-j pass into a single
-  compare+select+reduce kernel (used on CPU and as the fallback).
-* :func:`compact_ranks_pallas` — a Pallas TPU kernel: the [R, C] tile loads
-  into VMEM **once** and the whole rank loop runs on-chip, so HBM traffic
-  drops from max_hits passes to one (plus the tiny outputs).
+* :func:`compact_ranks` — jnp; XLA fuses the rank-j passes into reduction
+  kernels.  The engines use this one (:func:`compact_auto`).  The [B, C]
+  planes are a few MB, so the passes re-read them from the card's L2; a
+  hand-written Pallas (Triton) kernel that ran the rank loop on registers
+  measured the same device time on the H100 (PERF.md, Findings) and was
+  not kept.
+* :func:`compact_sort` — a stable multi-operand ``lax.sort``; the wide
+  fallback tiers use it, and it is the oracle for the rank formulation.
 
-Both return identical values (tests/test_compact.py asserts bit-equality
-against each other and the reference sort formulation).
+Both return identical values (tests/test_compact.py asserts bit-equality).
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 _SENT = 2**31 - 1
 
@@ -42,7 +37,7 @@ def interleave_planes(planes):
 
     Column j = K*p + k holds plane k's candidate for window p, so ascending
     j is ascending (window, plane) — the reference discovery order (equal to
-    the round-2 stable sort by window position over plane-major concat).
+    the stable sort by window position over the plane-major concatenation).
     """
     cand = jnp.stack([c for c, _ in planes], axis=2)
     valid = jnp.stack([v for _, v in planes], axis=2)
@@ -59,9 +54,8 @@ def compact_ranks(cand_ilv, valid_ilv, pos_ilv, max_hits: int, extras=()):
       pos_ilv: int32 [B, C] window position of each column (broadcastable).
       extras: additional [B, C] payload planes compacted under the SAME
         mask — the cheap way to carry per-candidate values (query key words,
-        plane ids, ...) instead of re-fetching them afterwards with
-        ``take_along_axis`` (whose per-row gathers are transaction-bound on
-        TPU and cost more than the whole compaction).
+        plane ids, ...) instead of re-fetching them afterwards with a
+        per-row ``take_along_axis`` gather.
     Returns:
       (pos32, cand32, ncand, extras32): int32 [B, max_hits] window positions
       (``_SENT`` pad past the last candidate), int32 [B, max_hits] payloads
@@ -98,107 +92,11 @@ def compact_ranks(cand_ilv, valid_ilv, pos_ilv, max_hits: int, extras=()):
     return pos32, cand32, ncand, extras32
 
 
-def _compact_kernel(*refs, max_hits: int, n_extra: int):
-    """Pallas body: one [R, C] tile; the rank-j selection loop runs from VMEM.
-
-    refs = (cand, rankv, pos, *extras, pos_out, cand_out, n_out, *extra_outs).
-    """
-    cand_ref, rankv_ref, pos_ref = refs[:3]
-    extra_refs = refs[3 : 3 + n_extra]
-    pos_out, cand_out, n_out = refs[3 + n_extra : 6 + n_extra]
-    extra_outs = refs[6 + n_extra :]
-    rankv = rankv_ref[:]
-    cand = cand_ref[:]
-    pos = pos_ref[:]
-    # Mosaic lacks unsigned reductions; bitcast to int32 (exact — each
-    # reduction selects exactly one term, so the bit pattern round-trips)
-    extras = []
-    for r in extra_refs:
-        e = r[:]
-        if jnp.issubdtype(e.dtype, jnp.unsignedinteger):
-            e = jax.lax.bitcast_convert_type(e, jnp.int32)
-        extras.append(e)
-    n_out[:] = jnp.max(rankv, axis=1, keepdims=True)
-    for j in range(max_hits):
-        m = rankv == (j + 1)
-        pos_out[:, j] = jnp.sum(jnp.where(m, pos, 0), axis=1)
-        cand_out[:, j] = jnp.sum(jnp.where(m, cand, 0), axis=1)
-        for e, eo in zip(extras, extra_outs):
-            s = jnp.sum(jnp.where(m, e, jnp.zeros((), e.dtype)), axis=1)
-            if s.dtype != eo.dtype:
-                s = jax.lax.bitcast_convert_type(s, eo.dtype)
-            eo[:, j] = s
-
-
-def compact_ranks_pallas(cand_ilv, valid_ilv, pos_ilv, max_hits: int,
-                         rows_per_tile: int = 512, interpret: bool = False,
-                         extras=()):
-    """Rank-compaction as a Pallas TPU kernel (see module doc).
-
-    The cumulative sum stays in XLA (one fused pass); the max_hits selection
-    passes — the HBM-traffic multiplier in the jnp formulation — run in a
-    single Pallas kernel whose [R, C] tile is resident in VMEM.  Extra
-    payload planes compact under the same mask (see compact_ranks).  Pass
-    ``interpret=True`` on CPU (tests do; engine code calls the jnp variant
-    off-TPU).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    b, c0 = cand_ilv.shape
-    rank = jnp.cumsum(valid_ilv.astype(jnp.int32), axis=1)
-    rankv = jnp.where(valid_ilv, rank, 0)
-    pos = jnp.broadcast_to(pos_ilv, (b, c0)).astype(jnp.int32)
-    exb = [jnp.broadcast_to(e, (b, c0)) for e in extras]
-    # pad the column dim to the 128-lane boundary (padded rankv columns are 0
-    # and never match a rank)
-    c = -(-c0 // 128) * 128
-    if c != c0:
-        pad = ((0, 0), (0, c - c0))
-        cand_ilv = jnp.pad(cand_ilv, pad)
-        rankv = jnp.pad(rankv, pad)
-        pos = jnp.pad(pos, pad)
-        exb = [jnp.pad(e, pad) for e in exb]
-    r = min(rows_per_tile, b)
-    # VMEM-aware tile sizing (ADVICE r3): the grid pipelines two tiles of
-    # (3 + n_extras) int32 input planes; at wide column counts (no-bloom
-    # dispatch at large max_len presets) a fixed 512-row tile can exceed the
-    # ~16 MB VMEM budget and fail to compile AT RUNTIME inside an engine jit.
-    # Halve rows until the resident working set fits a conservative budget.
-    tile_bytes = lambda rows: rows * c * 4 * (3 + len(exb)) * 2  # noqa: E731
-    while r > 8 and tile_bytes(r) > (10 << 20):
-        r //= 2
-    grid = (pl.cdiv(b, r),)
-    in_spec = pl.BlockSpec((r, c), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((r, max_hits), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    outs = pl.pallas_call(
-        functools.partial(_compact_kernel, max_hits=max_hits, n_extra=len(exb)),
-        grid=grid,
-        in_specs=[in_spec] * (3 + len(exb)),
-        out_specs=(
-            out_spec, out_spec,
-            pl.BlockSpec((r, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ) + tuple(out_spec for _ in exb),
-        out_shape=(
-            jax.ShapeDtypeStruct((b, max_hits), jnp.int32),
-            jax.ShapeDtypeStruct((b, max_hits), jnp.int32),
-            jax.ShapeDtypeStruct((b, 1), jnp.int32),
-        ) + tuple(jax.ShapeDtypeStruct((b, max_hits), e.dtype) for e in exb),
-        interpret=interpret,
-    )(cand_ilv.astype(jnp.int32), rankv, pos, *exb)
-    pos32, cand32, n2 = outs[0], outs[1], outs[2]
-    extras32 = tuple(outs[3:])
-    ncand = n2[:, 0]
-    has = jax.lax.broadcasted_iota(jnp.int32, pos32.shape, 1) < ncand[:, None]
-    pos32 = jnp.where(has, pos32, jnp.int32(_SENT))
-    return pos32, cand32, ncand, extras32
-
-
 def compact_sort(cand_ilv, valid_ilv, pos_ilv, max_hits: int, extras=()):
-    """The round-2 sort formulation (multi-operand lax.sort) — the cheapest
-    at wide budgets on the target chip, so the rare dense/overflow fallback
-    tiers use it; also the oracle for the rank formulations in tests.
-    Outputs are canonicalized to match compact_ranks bit-for-bit (0 pads)."""
+    """The sort formulation (stable multi-operand lax.sort): one pass at any
+    budget, so the rare dense/overflow fallback tiers use it; also the oracle
+    for the rank formulations in tests.  Outputs are canonicalized to match
+    compact_ranks bit-for-bit (0 pads)."""
     b, c = cand_ilv.shape
     # ascending interleaved column index IS (window, plane) order
     keys = jnp.where(
@@ -226,48 +124,8 @@ def compact_sort(cand_ilv, valid_ilv, pos_ilv, max_hits: int, extras=()):
 
 # ------------------------------------------------------------- dispatcher
 
-_PALLAS_OK: bool | None = None
-
-
-def pallas_available() -> bool:
-    """True when compact_ranks_pallas compiles + runs on the default backend.
-
-    Probed once with a tiny fixture (some TPU transports expose nonstandard
-    platform names, so we try rather than sniff); any failure disables the
-    Pallas path for the process and the jnp formulation is used instead.
-    """
-    global _PALLAS_OK
-    if _PALLAS_OK is None:
-        try:
-            if jax.default_backend() == "cpu":
-                _PALLAS_OK = False
-            else:
-                c = jnp.arange(8 * 128, dtype=jnp.int32).reshape(8, 128)
-                v = (c & 7) == 0
-                p = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-                got = compact_ranks_pallas(c, v, p, 4, extras=(c + 1,))
-                want = compact_ranks(c, v, p, 4, extras=(c + 1,))
-                _PALLAS_OK = all(
-                    np.array_equal(np.asarray(a), np.asarray(b))
-                    for a, b in zip(got[:3] + got[3], want[:3] + want[3])
-                )
-        except Exception:
-            _PALLAS_OK = False
-    return _PALLAS_OK
-
 
 def compact_auto(cand_ilv, valid_ilv, pos_ilv, max_hits: int, extras=()):
-    """Engine entry point: formulation picked by KMER_COMPACT (sort | reduce |
-    pallas | auto).  ``auto`` = Pallas when it probes OK, else jnp reductions.
-    Resolved at trace time — callers jit over this, so the choice is baked
-    into the compiled kernel."""
-    impl = os.environ.get("KMER_COMPACT", "auto")
-    if impl == "auto":
-        impl = "pallas" if pallas_available() else "reduce"
-    if impl == "pallas":
-        return compact_ranks_pallas(
-            cand_ilv, valid_ilv, pos_ilv, max_hits, extras=extras
-        )
-    if impl == "sort":
-        return compact_sort(cand_ilv, valid_ilv, pos_ilv, max_hits, extras=extras)
+    """Engine entry point: the one compaction formulation the engines use
+    (fused jnp reductions; see the module doc for why)."""
     return compact_ranks(cand_ilv, valid_ilv, pos_ilv, max_hits, extras=extras)

@@ -1,17 +1,17 @@
 """Device-side canonical k-mer extraction from packed read batches.
 
-TPU-native reformulation of the reference's per-character rolling-key loop
+Data-parallel reformulation of the reference's per-character rolling-key loop
 (``newkmer_10nx.cpp:475-528``): instead of a sequential (keyF, keyR, cpos)
 automaton, every sliding window's two key words are computed as 30 unrolled
-shifted adds over the whole [batch, length] code plane (pure VPU work, XLA
-fuses the adds), and window validity falls out of a prefix-sum over the
+shifted adds over the whole [batch, length] code plane (elementwise work
+that XLA fuses), and window validity falls out of a prefix-sum over the
 invalid-base indicator.  Semantics are identical: a k-mer is emitted at every
 position whose trailing 30 bases are valid, and any non-ACGT base invalidates
 exactly the windows containing it (the reference's ``cpos = 0`` reset).
 
 Keys are carried as two uint32 words — hi = bits [32, 60), lo = bits [0, 32)
-— because TPUs have no fast 64-bit integer path.  Comparisons downstream are
-lexicographic on (hi, lo).
+— (core/codec.py: the device path stays 32-bit).  Comparisons downstream
+are lexicographic on (hi, lo).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ ascending k-mer end position, reads in file order.  We keep the fold exact by
 scanning positions left-to-right with a [batch]-wide carry: the scan is
 sequential over ≤ L-29 tiny steps, but each step is a fully vectorized
 msca over the whole batch (a handful of gathers into the ancestor table), so
-the batch dimension keeps the VPU busy.
+the batch dimension keeps the device busy.
 
 ``msca``/``lca`` are computed from the ancestor-at-depth table built in
 core/taxonomy.py — O(1) gathers for comparability tests and a log2(max_depth)
@@ -119,9 +119,9 @@ def fold_targets_interval(chain3: jax.Array, targets: jax.Array) -> jax.Array:
     device formulation used by the fp engine's inconsistent-read branch.
 
     Semantically identical to :func:`fold_targets` (tested equal), but
-    restructured for the TPU's cost model: ``fold_targets``'s scan step runs
+    restructured to cut per-step work: ``fold_targets``'s scan step runs
     ~15 *separate* gather kernels (is-ancestor checks + an LCA binary
-    search), ~1 ms/step; here ALL taxonomy data is pre-gathered in one pass
+    search); here ALL taxonomy data is pre-gathered in one pass
     ([B, P, D, 3] ancestor-chain rows from the small ``chain3`` table,
     core/taxonomy.chain_tables) and each scan step is pure elementwise
     interval math plus one take_along_axis:
@@ -221,24 +221,25 @@ def fold_targets_chain(
     """Ordered per-read msca fold — the slim scan used by the fp engine.
 
     Semantically identical to :func:`fold_targets_interval` (tested equal) but
-    restructured again for the TPU cost model: that version carried the
+    restructured again to shrink the scan carry: that version carried the
     running node's full ancestor chain ([B, D, 3]) through the scan and
     pre-gathered every hit's chain ([B, P, D, 3]), paying ~3 large
     jnp.where's + a take_along_axis per step.  Observation: the carried chain
     is ALWAYS exactly ``chain3[f]`` — on adopt/descend it becomes the new
     node's chain, on stay it is unchanged, and the LCA case truncates to the
     LCA's own chain — so it never needs to be carried or truncated at all:
-    re-gather ``chain3[f]`` per step (8k rows from a <2 MB table, the fast
-    gather zone) and keep the carry to three [B] vectors.
+    re-gather ``chain3[f]`` per step (8k rows from a <2 MB table) and keep
+    the carry to three [B] vectors.
 
     A second structural saving: each hit's own (tin, tout) interval already
     rides in the verify row the fp engine gathered (db/fpdb.py rec payload),
     so callers pass them in and the [B, P, D, 3] pre-gather disappears.
 
     Third — the one that actually pays (the scan is per-STEP latency-bound,
-    ~0.35 ms/step on the target chip regardless of per-step width): the trip
-    count is DYNAMIC, `max(last hit column) + 1` over the batch, via
-    lax.fori_loop.  Callers that only need some rows folded should zero the
+    whatever the per-step width): the trip count is DYNAMIC,
+    `max(last hit column) + 1` over the batch, via lax.fori_loop (on the
+    GPU a while loop whose predicate is read per step; its cost per step is
+    not measured on the H100).  Callers that only need some rows folded should zero the
     other rows' targets (fp_finals zeroes consistent reads, whose fold
     result is discarded anyway): hit lists are front-compacted, so typical
     inconsistent batches scan 2-4 steps, not max_hits.
@@ -273,7 +274,7 @@ def fold_targets_chain(
         fnone = f == 0
         descend = (ftin <= tin_c) & (tin_c <= ftout)
         stay = (tin_c <= ftin) & (ftin <= tout_c)
-        chainF = jnp.take(chain3, f, axis=0)  # [B, D, 3] fast-zone gather
+        chainF = jnp.take(chain3, f, axis=0)  # [B, D, 3] small-table gather
         q = (chainF[:, :, 1] <= tin_c[:, None]) & (tin_c[:, None] <= chainF[:, :, 2])
         jstar = jnp.maximum(q.sum(axis=1) - 1, 0)
         lca = jnp.take_along_axis(chainF, jstar[:, None, None], axis=1)[:, 0, :]

@@ -1,6 +1,6 @@
 """Sorted-array k-mer lookup: vectorized two-word binary search.
 
-TPU-native replacement for the reference's 24 GiB open-addressing hash table
+Device replacement for the reference's 24 GiB open-addressing hash table
 (``newkmer_10nx.cpp:158-266``): the probe DB is a flat array of *sorted*
 60-bit keys split into (hi, lo) uint32 words, and each query becomes a
 branch-free lower-bound binary search — log2(N) rounds of gathers over the
@@ -103,32 +103,18 @@ def lookup_keys(db, q_hi: jax.Array, q_lo: jax.Array, bucket_bits: int = 0,
 # ------------------------------------------------------- fingerprint path
 
 
-_GATHER_PAD = None
-
-
-def _gather_pad_on() -> bool:
-    global _GATHER_PAD
-    if _GATHER_PAD is None:
-        import os
-
-        _GATHER_PAD = os.environ.get("KMER_GATHER_PAD", "1") != "0"
-    return _GATHER_PAD
-
-
 def take_rows(tab: jax.Array, idx: jax.Array) -> jax.Array:
     """``jnp.take(tab, idx, axis=0)`` with the index plane re-shaped to an
-    [odd, 128] layout.
+    [odd, 128] layout (flattened, padded to an odd multiple of 128 lanes,
+    reshaped back; padding lanes gather row 0 and are sliced off).
 
-    Measured on the target chip (tools/gather_curve.py r5): row-gather cost
-    at a fixed lane count depends on the index plane's shape — totals whose
-    2-adic valuation is high (2^10+ divisible: [8192, 131], [8192, 128],
-    flat powers of two) run ~25-37% SLOWER than the same lanes laid out as
-    [odd, 128] (1.07M lanes into 134 MB: 12.3 -> 7.7 ms; 98k lanes: 1.55 ->
-    1.07 ms).  Flattening, padding to an odd multiple of 128 lanes, and
-    reshaping back buys that back for every hot gather (bloom gate, L1/L2
-    candidates, rec verify).  Padding lanes gather row 0 and are sliced off.
+    Used for the narrow post-compaction gathers (L1/L2 candidates, rec
+    verify, tinfo).  On an H100 the finals step with this layout took the
+    same device time as with a plain ``jnp.take`` and ~5% less wall time
+    per step (PERF.md, Findings); why the wall time differs is not
+    measured.
     """
-    if not _gather_pad_on() or idx.ndim == 0:
+    if idx.ndim == 0:
         return jnp.take(tab, idx, axis=0)
     shape = idx.shape
     n = 1
@@ -184,8 +170,8 @@ def bloom_pass(db, q_hi, q_lo, valid):
     """128-bit-block Bloom membership pre-test: bool plane, True where the
     window MIGHT be a probe (no false negatives — db/fpdb.build_bloom sets
     every one of the key's BLOOM_BITS bits; ~2.4% false-pass at 16
-    keys/block with k=4).  ONE 16-byte row-gather into the fast-zone
-    ``bloom`` table per window — the gate that keeps the expensive L1 gather
+    keys/block with k=4).  ONE 16-byte row-gather into the ``bloom`` table
+    per window — the gate that keeps the expensive L1 gather
     off ~97% of windows (engine/fpclassify)."""
     bloom = db["bloom"]
     nblk = bloom.shape[0]
@@ -203,11 +189,8 @@ def bloom_pass(db, q_hi, q_lo, valid):
             )
         return jnp.all((row & need) == need, axis=-1)
 
-    # NOTE: the [odd, 128] take_rows layout does NOT help here — measured
-    # in-kernel, the full-width [B, P] gather+test chain is already emitted
-    # well by XLA (6.3 ms stage) and any pad/reshape around it costs ~0.6 ms
-    # (r5 kernel ablations).  The padding win is real only for the NARROW
-    # post-compaction gathers (L1/L2/rec/tinfo), which do use take_rows.
+    # the full-width [B, P] gather keeps the plain take: XLA fuses it with the
+    # bit test, and a pad/reshape around it would break that fusion
     return valid & test(blk, bits)
 
 
@@ -224,8 +207,8 @@ def _fp_bucket_match(row, fp):
 def fp_candidates(db, q_hi, q_lo, valid):
     """Two-level fingerprint stage: per-window candidate slot ids.
 
-    ONE transaction-bound gather into the big L1 table (single-choice) plus
-    two cheap gathers into the small L2 overflow cuckoo (db/fpdb.py module
+    ONE gather into the big L1 table (single-choice) plus two gathers into
+    the small L2 overflow cuckoo (db/fpdb.py module
     doc).  Returns a list of (cand, valid) planes — candidate slot id
     (bucket*8+slot; L2 offset by nb1*8) and validity per choice.  The last
     plane excludes c2 == c1 (the match would be the same slot twice).  A

@@ -1,11 +1,12 @@
 """Multi-host runtime: initialization, sample-queue scaling, health checks.
 
-Single-slice multi-chip runs need no process coordination (one process, all
-local devices in the mesh).  Multi-host pods use `jax.distributed` —
-initialize before device use, then build the global mesh; in-slice
-collectives ride ICI and cross-slice traffic rides DCN, so the mesh layout
-keeps the ``db`` axis (latency-sensitive psum) inside a slice and spreads
-``data`` across hosts (SURVEY.md §5 distributed-comm row).
+Single-host multi-card runs need no process coordination (one process, all
+local devices in the mesh).  Multi-process runs use `jax.distributed` —
+initialize before device use, then build the global mesh; collectives
+between the cards of one host ride NVLink and cross-host traffic rides the
+network, so the mesh layout keeps the ``db`` axis (latency-sensitive psum)
+inside a host and spreads ``data`` across hosts (SURVEY.md §5
+distributed-comm row).
 
 Because samples are fully independent (per-sample counter reset,
 ``newkmer_10nx.cpp:1015-1045``), the coarse-grained scale-out path is a
@@ -29,13 +30,24 @@ from kmer_id_tpu.utils.logging import log
 
 def initialize(coordinator: str | None = None, num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Bring up the jax.distributed runtime (no-op when single-process)."""
+    """Bring up the jax.distributed runtime (no-op when single-process).
+
+    One process drives one card: process ``i`` opens only card ``i`` of its
+    host (``local_device_ids``), so it neither reserves memory on its
+    siblings' cards nor sees them as local devices.  A launcher that pins
+    cards itself through ``CUDA_VISIBLE_DEVICES`` (one card per process, as
+    multi-host launchers do) is left to do so.
+    """
     if num_processes is None or num_processes <= 1:
         return
+    local_ids = None
+    if "CUDA_VISIBLE_DEVICES" not in os.environ:
+        local_ids = [process_id]
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_ids,
     )
     log(
         f"distributed up: process {jax.process_index()}/{jax.process_count()}, "

@@ -7,16 +7,14 @@ fingerprint layout (db/fpdb.py) onto the mesh:
 * **L1 table sharded by bucket range**: db shard k owns buckets
   [k*nb1/K, (k+1)*nb1/K) of the single-choice table plus that range's
   ``rec``/``slot_target`` rows — a window's L1 bucket lives on exactly one
-  shard, so candidate ownership is a partition.  Smaller per-shard tables
-  also gather FASTER (XLA gather rate rises as tables shrink; PERF.md), so
-  db-sharding buys memory capacity without slowing the probe.
+  shard, so candidate ownership is a partition.
 * **L2 overflow cuckoo replicated, probed by db rank 0 only** (it is
   ~0.3% of keys and KBs in size; single ownership keeps hits and the
   unique-k-mer scatter exactly-once).
-* **Per-shard block-Bloom gate** (round 4): shard k's filter holds exactly
-  the keys k owns, so a DB too large for the single-chip fast-zone filter
-  budget (db/fpdb.bloom_blocks_for) regains the gate once dbp shards split
-  it; windows passing the gate are rank-compacted before any L1 gather,
+* **Per-shard block-Bloom gate**: shard k's filter holds exactly the keys
+  k owns, so a DB too large for the single-card filter budget
+  (db/fpdb.bloom_blocks_for) regains the gate once dbp shards split it;
+  windows passing the gate are rank-compacted before any L1 gather,
   exactly like the flagship engine.
 * **Merge = ONE all_gather of compact per-read hit planes** over ``db``:
   each shard verifies its own candidates locally (exact 60-bit key compare
@@ -206,9 +204,8 @@ class ShardedFpClassifier:
         self._chain3 = _put_global(chain3, rep)
         # PER-SHARD block-Bloom filters: shard k's filter holds exactly the
         # keys k owns (its L1 bucket range, + every L2 key on rank 0), so a
-        # DB too large for one chip's fast-gather-zone filter budget
-        # (db/fpdb.bloom_blocks_for) regains the bloom gate once dbp shards
-        # split it — the sharded answer to the single-chip ~33M-key cap.
+        # DB too large for one card's filter budget (db/fpdb.bloom_blocks_for)
+        # regains the bloom gate once dbp shards split it.
         import os as _os
 
         self._bloom = None
@@ -225,8 +222,7 @@ class ShardedFpClassifier:
         self._data_sh = NamedSharding(mesh, P("data"))
         # seen is GLOBALLY FLAT [dp*dbp*loc], sharded jointly over both
         # mesh axes: the local block is then natively 1-D, so the in-kernel
-        # scatter needs no [0,0,:] indexing or reshape — either form cost
-        # ~3.5 ms/batch extra on the target chip (r5 sharded ablations)
+        # scatter needs no [0,0,:] indexing or reshape
         self._seen_sh = NamedSharding(mesh, P(("data", "db")))
 
         nb1, nb2, nbloc, mh = f.nb, f.nb2, self.nbloc, max_hits
@@ -236,7 +232,7 @@ class ShardedFpClassifier:
         # shard owns ~1/dbp of them); a shard whose candidate count exceeds
         # it flags overflow and the batch replays exact.  Narrow budgets
         # shrink the compaction, the verify gather AND the dbp*sh-wide merge
-        # sort — the round-3 engine carried max_hits-wide planes everywhere.
+        # sort.
         sh = min(8, mh)
         bloom_k = 24  # per-shard budget of filter-passing windows (each
         # shard's filter holds only ITS keys, so per-shard pass counts are
@@ -255,9 +251,8 @@ class ShardedFpClassifier:
             (engine/fpclassify._compact_verify) shard-locally."""
             s1, s2, s3, s4, s5 = salts
             # rec/bloom local blocks arrive SLICE-FREE ([loc, 3] / [nblk, 4]
-            # — the shard axis is flattened into axis 0): a leading-axis
-            # [0]-slice of the 800 MB local block cost ~10 ms/call on the
-            # target chip (r5 sharded-stage ablations)
+            # — the shard axis is flattened into axis 0), so no leading-axis
+            # [0]-slice copies the local block
             ex = extract_kmers(codes, lengths)
             hi, lo, valid = ex["hi"], ex["lo"], ex["valid"]
             rows, p = hi.shape
@@ -269,7 +264,7 @@ class ShardedFpClassifier:
             b0 = dbi.astype(jnp.int32) * nbloc
             bover = jnp.zeros((rows,), bool)
             if use_bloom:
-                # gate: ONE fast-zone gather into THIS shard's filter (built
+                # gate: ONE gather into THIS shard's filter (built
                 # over exactly the keys this shard owns: its L1 bucket range
                 # + L2 on rank 0) decides which windows probe L1 at all
                 blm = bloom
@@ -319,8 +314,8 @@ class ShardedFpClassifier:
             ]
             cand_ilv, valid_ilv = interleave_planes(planes)
             pos_ilv = jnp.repeat(wp, len(planes), axis=1)
-            # query key words ride as compaction payloads (take_along_axis
-            # per-row gathers are transaction-bound; see engine/fpclassify)
+            # query key words ride as compaction payloads instead of a
+            # per-row take_along_axis re-fetch (see engine/fpclassify)
             posk, cand, ncand, (qhi, qlo) = compact_auto(
                 cand_ilv, valid_ilv, pos_ilv, sh,
                 extras=(jnp.repeat(hi, len(planes), axis=1),
@@ -358,8 +353,7 @@ class ShardedFpClassifier:
             # L1-range / L2-rank-0 ownership)
             sc = jnp.where(ver, cand, 0)
             sv = jnp.where(ver, jnp.int8(1), jnp.int8(0))
-            # 1-D scatter on the flattened local block (the [0,0,idx] 3-D
-            # form cost ~3.7 ms/call extra; r5 ablations)
+            # 1-D scatter on the flattened local block
             seen = seen.at[sc.reshape(-1)].max(
                 sv.reshape(-1), mode="promise_in_bounds"
             )
@@ -368,8 +362,7 @@ class ShardedFpClassifier:
                     lov.astype(jnp.int32).sum(), "data") * 0
             # merge: gather every shard's compact hits, re-sort by window
             # pos; on a dbp=1 mesh the gather is identity and the local
-            # plane is already window-ordered, so both steps drop out (the
-            # single-chip tax item of VERDICT r4 weak #3)
+            # plane is already window-ordered, so both steps drop out
             if self.dbp > 1:
                 gath = jax.lax.all_gather(
                     jnp.stack([posk, tgt, tin, td], axis=-1), "db"
@@ -448,7 +441,7 @@ class ShardedFpClassifier:
             seen = seen.at[sc.reshape(-1)].max(
                 sv.reshape(-1), mode="promise_in_bounds"
             )
-            # 1-D node-column gather (the [N, 2] form lane-pads 2 -> 128)
+            # 1-D gather of the node column
             tloc = jnp.where(
                 slot >= 0,
                 jnp.take(tinfo[:, 0], stin.reshape(-1), axis=0).reshape(slot.shape),
@@ -484,19 +477,16 @@ class ShardedFpClassifier:
             with a psum, resolve each local slot's target from its rec row's
             tin label, segment-sum per target, psum over db.  Device->host
             traffic shrinks from the whole [dp*dbp*loc] bitmap (GBs at
-            production slot counts over DCN — VERDICT r3 weak #9) to ONE
-            replicated [num_targ] int32 vector (~24 KB)."""
-            from kmer_id_tpu.engine.fpclassify import onehot_hist
+            production slot counts) to ONE replicated [num_targ] int32
+            vector (~24 KB)."""
+            from kmer_id_tpu.engine.fpclassify import target_histogram
 
             s = jax.lax.psum(seen.astype(jnp.int32), "data")
             tin = (rec[:, 2] & jnp.uint32(0xFFFFFF)).astype(jnp.int32)
-            # 1-D node-column gather: a [loc, 2] result would be lane-padded
-            # 2 -> 128 at production slot counts (tens of GB)
+            # 1-D gather of the node column
             t = jnp.take(tinfo[:, 0], tin, axis=0)
             m = (s > 0) & (rec[:, 0] != EMPTY_HI) & (t > 1)
-            # MXU one-hot histogram (engine/fpclassify.onehot_hist): the
-            # scatter-add formulation serializes on target collisions
-            u = onehot_hist(m.astype(jnp.float32), t, num_targ)
+            u = target_histogram(m, t, num_targ)
             # L2 rows are replicated on every db member but only rank 0 ever
             # scatters them (own2 gating in local_hits), so the db-psum
             # counts each slot exactly once

@@ -10,8 +10,9 @@ Axes (scaling-book style — annotate shardings, let XLA place collectives):
   range and queries combine with a psum — exact, because every key lives
   on exactly one shard).
 
-In-slice, both axes ride ICI; across slices put ``data`` outermost so the
-low-bandwidth DCN only carries per-sample count merges.
+On one host both axes ride NVLink (every card reaches every other at the
+same rate); across hosts put ``data`` outermost so the slower inter-host
+network only carries per-sample count merges.
 """
 
 from __future__ import annotations

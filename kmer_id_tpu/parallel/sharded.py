@@ -8,7 +8,7 @@ SPMD design (shard_map over a (data, db) mesh):
 * read batches shard across ``data`` and are replicated across ``db``; each
   device binary-searches its local range, and per-window targets combine
   with a single ``psum`` over ``db`` (all non-owners contribute 0) — the only
-  collective in the hot path, riding ICI;
+  collective in the hot path;
 * the ordered MSCA fold then runs identically on every ``db`` member (cheap,
   keeps the final per-read calls replicated), and the ``seen`` bitmap stays
   aligned with the local key range, so unique-k-mer accounting needs no

@@ -103,7 +103,7 @@ def gzip_file(src: str, dst: str) -> None:
 def _proc_snapshot(pid: int) -> str:
     """Capture WHERE a wedged child is blocked (state, wait channel, current
     syscall, and per-thread kernel stacks when readable) before it is killed
-    — the diagnostic VERDICT r4 weak #6 asked for in place of blind retries.
+    — a diagnostic in place of blind retries.
     Every observed wedge so far printed all its progress output first, so the
     snapshot of the post-output blocking point is the root-cause artifact."""
     out = []
@@ -136,9 +136,8 @@ def run(binary: str, args: list[str], cwd: str, timeout: int = 120,
     progress output (observed twice across full-suite runs, under host CPU
     saturation; the same fixture passes in seconds in isolation).  Policy:
     healthy fixtures complete in seconds, so early attempts use a short
-    timeout, but the FINAL attempt falls back to the pre-r4 600 s budget so
-    a legitimately slow run on a loaded 2-vCPU host still passes (ADVICE
-    r4).  Each timed-out attempt prints the child's /proc blocking-point
+    timeout, but the FINAL attempt falls back to a 600 s budget so a
+    legitimately slow run on a loaded host still passes.  Each timed-out attempt prints the child's /proc blocking-point
     snapshot (_proc_snapshot) plus its output tail, so any recurrence
     arrives with the syscall it was stuck in; retry counts are surfaced in
     the printed lines.

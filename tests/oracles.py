@@ -2,7 +2,7 @@
 
 These transliterate the *behavioral spec* extracted from the reference
 (SURVEY.md §2.2 with file:line citations) as straight-line Python: slow,
-obviously-correct models that the vectorized TPU implementations are tested
+obviously-correct models that the vectorized device implementations are tested
 against.  They are test-only code.
 """
 

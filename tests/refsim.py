@@ -2,7 +2,7 @@
 
 Models the observable pipeline of ``newkmer_10nx.cpp``/``kmer_read_vf6.cpp``
 (process_qual → process_read → counters/saved-reads) with the scalar oracles,
-so the TPU engine can be checked end-to-end without compiling the C++.
+so the device engines can be checked end-to-end without compiling the C++.
 """
 
 from __future__ import annotations

@@ -4,12 +4,10 @@ The engine's candidate compaction must reproduce the reference's discovery
 order exactly — ascending window position, ties in plane order
 (newkmer_10nx.cpp:529-603 probes each window once; our planes are mutually
 exclusive for true hits but false fingerprint candidates can co-occur).
-These tests pin compact_ranks (jnp), compact_ranks_pallas (interpret mode on
-CPU), and compact_sort (the round-2 sort oracle) to identical outputs, and
-the engine paths to identical finals whichever formulation is selected.
+These tests pin compact_ranks (jnp) and compact_sort (the sort oracle) to
+identical outputs, and the engine paths to identical finals whichever
+formulation is selected.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -19,8 +17,8 @@ import jax.numpy as jnp
 
 from kmer_id_tpu.ops.compact import (
     _SENT,
+    compact_auto,
     compact_ranks,
-    compact_ranks_pallas,
     compact_sort,
     interleave_planes,
 )
@@ -50,19 +48,26 @@ def test_reduce_matches_sort(density, max_hits):
 
 
 @pytest.mark.parametrize("b,p", [(8, 37), (64, 131)])
-def test_pallas_interpret_matches_reduce(b, p):
+def test_compact_auto_is_fixed_rank_form(b, p):
+    """The engines' entry point is the jnp rank form, chosen in code: no
+    kernel probe, no fallback, the same result on every backend; its
+    payload planes (incl. uint32 key words) match the sort oracle."""
+    from kmer_id_tpu.ops import compact
+
+    assert not hasattr(compact, "pallas_available")
     rng = np.random.default_rng(7)
     cand_ilv, valid_ilv, pos_ilv = _fixture(rng, b, p, 3, 0.05)
     ex = (cand_ilv + 1, (cand_ilv * 3).astype(jnp.uint32))
-    got = compact_ranks_pallas(
-        cand_ilv, valid_ilv, pos_ilv, 8, interpret=True, extras=ex
-    )
+    got = compact_auto(cand_ilv, valid_ilv, pos_ilv, 8, extras=ex)
     want = compact_ranks(cand_ilv, valid_ilv, pos_ilv, 8, extras=ex)
-    for g, w, name in zip(
-        got[:3] + got[3], want[:3] + want[3],
+    oracle = compact_sort(cand_ilv, valid_ilv, pos_ilv, 8, extras=ex)
+    for g, w, o, name in zip(
+        got[:3] + got[3], want[:3] + want[3], oracle[:3] + oracle[3],
         ("pos", "cand", "ncand", "ex0", "ex1"),
     ):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=name)
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(o), err_msg=name)
+        assert np.asarray(g).dtype == np.asarray(o).dtype
 
 
 def test_window_order_with_cross_plane_ties():
@@ -86,6 +91,7 @@ def test_window_order_with_cross_plane_ties():
 def test_engine_equal_under_all_formulations(monkeypatch):
     """fp engine gcount/ucount are identical under sort and reduce compaction
     (the selection is trace-time, so clear jit caches between runs)."""
+    from kmer_id_tpu.ops import compact
     from kmer_id_tpu.config import ClassifyConfig
     from kmer_id_tpu.core.taxonomy import Taxonomy
     from kmer_id_tpu.db.probes import pack_probes
@@ -104,8 +110,9 @@ def test_engine_equal_under_all_formulations(monkeypatch):
     records = make_reads(kmap, n=200, read_len=90)
 
     results = {}
-    for impl in ("sort", "reduce"):
-        monkeypatch.setenv("KMER_COMPACT", impl)
+    impls = {"sort": compact.compact_sort, "reduce": compact.compact_ranks}
+    for impl, fn in impls.items():
+        monkeypatch.setattr(compact, "compact_auto", fn)
         jax.clear_caches()
         cfg = ClassifyConfig.preset("nx", num_targ=8, batch_size=32, max_len=96)
         clf = FpClassifier(packed, tax, batch_size=32, max_len=96, max_hits=8)
@@ -115,5 +122,5 @@ def test_engine_equal_under_all_formulations(monkeypatch):
         results[impl] = (res.gcount.copy(), res.ucount.copy())
     np.testing.assert_array_equal(results["sort"][0], results["reduce"][0])
     np.testing.assert_array_equal(results["sort"][1], results["reduce"][1])
-    monkeypatch.delenv("KMER_COMPACT", raising=False)
+    monkeypatch.undo()
     jax.clear_caches()

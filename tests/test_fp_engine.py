@@ -97,6 +97,24 @@ def test_fp_engine_matches_refsim(world, batch_size, max_len):
     assert res.ucount.tolist() == sim.ucount
 
 
+@pytest.mark.chip
+def test_fp_engine_matches_refsim_on_gpu(world, gpu):
+    """The same exactness check with every kernel compiled for the card."""
+    rec, kmap, parent, tax, packed = world
+    records = make_reads(kmap, n=300, read_len=90)
+    sim = RefSim(kmap, parent, num_targ=8, u_is_t=False)
+    sim.feed(records)
+    with jax.default_device(gpu):
+        cfg = ClassifyConfig.preset("nx", num_targ=8, batch_size=64, max_len=96)
+        clf = FpClassifier(packed, tax, batch_size=64, max_len=96)
+        assert clf._db["rec"].devices() == {gpu}
+        sp = SampleProcessor(clf, cfg)
+        sp.feed(records)
+        res = sp.finish()
+    assert res.gcount.tolist() == sim.gcount
+    assert res.ucount.tolist() == sim.ucount
+
+
 def test_fp_engine_long_reads(world):
     rec, kmap, parent, tax, packed = world
     records = []
@@ -265,8 +283,8 @@ def test_fp_engine_two_tier_boundary(world):
 
 
 def test_fp_engine_beyond_legacy_slot_cap():
-    """Production-scale guard: a DB whose slot table exceeds 2^22 slots (the
-    round-1 int32 packing cap) classifies correctly on the flagship path.
+    """Production-scale guard: a DB whose slot table exceeds 2^22 slots (an
+    earlier int32 packing cap) classifies correctly on the flagship path.
 
     5M probes -> nb 2^20 -> 2^23 slots; cross-checked against the legacy
     sorted-array engine (golden-tested elsewhere) on planted-probe reads.
@@ -320,24 +338,31 @@ def test_fp_engine_beyond_legacy_slot_cap():
     assert results[0].gcount[2:].sum() > 150  # planted probes actually hit
 
 
-def test_ucount_onehot_hist_matches_scatter():
-    """The MXU one-hot histogram finalize (engine/fpclassify.onehot_hist)
-    is bit-equal to the scatter-add formulation, including empty/padded
-    tails and targets at the hi*128+lo grid edges."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize("num_targ,n,dense", [
+    (5982, 100_001, False),
+    (17227, 1 << 16, False),
+    (130, 7, False),
+    # one target owning more than 2^24 set slots: past float32's exact
+    # integer range, exact in the int32 scatter-add
+    (64, (1 << 24) + 5, True),
+])
+def test_ucount_exact(num_targ, n, dense):
+    """The ucount finalize (engine/fpclassify._ucount_device) equals a host
+    bincount, including empty/padded tails, targets 0/1 (never counted) and
+    counts past 2^24."""
+    from kmer_id_tpu.engine.fpclassify import _ucount_device
 
-    from kmer_id_tpu.engine.fpclassify import onehot_hist
-
-    rng = np.random.default_rng(11)
-    for num_targ, n in ((5982, 100_001), (17227, 1 << 16), (130, 7)):
-        node = rng.integers(0, num_targ, size=n).astype(np.int32)
-        seen = (rng.random(n) < 0.3).astype(np.int8)
-        m = (seen > 0) & (node > 1)
-        want = np.zeros(num_targ, np.int32)
-        np.add.at(want, node[m], 1)
-        got = np.asarray(
-            onehot_hist(
-                jnp.asarray(m.astype(np.float32)), jnp.asarray(node), num_targ
-            )
-        )
-        assert (got == want).all()
+    r = np.random.default_rng(11)
+    if dense:
+        node = np.full(n, 7, np.int32)
+        node[:1000] = r.integers(0, num_targ, size=1000)
+        seen = np.ones(n, np.int8)
+        seen[::97] = 0
+    else:
+        node = r.integers(0, num_targ, size=n).astype(np.int32)
+        seen = (r.random(n) < 0.3).astype(np.int8)
+    m = (seen > 0) & (node > 1)
+    want = np.bincount(node[m], minlength=num_targ)
+    got = np.asarray(_ucount_device(seen, node, num_targ=num_targ))
+    assert got.dtype == np.int32
+    assert (got == want).all()

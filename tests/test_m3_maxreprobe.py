@@ -94,7 +94,7 @@ def world(tmp_path_factory):
         f">beyond\n{codec.key_to_string(int(keys[16]))}A\n"
     )
     # tiny fixture: seconds when healthy.  Short timeout + retries deflake
-    # the once-observed post-output wedge (VERDICT r3 weak #8) without
+    # the once-observed post-output wedge (ROADMAP C8) without
     # letting the full suite lose 10 minutes to it.
     r = gh.run(m3_tiny, ["-wdir", str(wdir) + "/", "-f1", str(f1), "-f2", "none"],
                cwd=str(root), timeout=90, retries=2)

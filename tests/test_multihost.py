@@ -1,7 +1,7 @@
 """Multi-host wiring: 2-process jax.distributed on localhost CPU.
 
-The reference is strictly single-process; the TPU-native framework scales
-across hosts with ``jax.distributed`` (SURVEY.md §2.4).  This test launches
+The reference is strictly single-process; this framework scales across
+hosts with ``jax.distributed`` (SURVEY.md §2.4).  This test launches
 two real processes that form one 4-device global CPU mesh, run a psum over
 the real mesh, and split classification work via the file-locked
 SampleQueue — verifying the wiring the CLI flags
@@ -165,7 +165,7 @@ def test_two_process_sharded_fp_classifier(tmp_path):
     processes x 2 CPU devices form a (data=2, db=2) mesh; per-process local
     batch rows enter via make_array_from_process_local_data; per-row finals
     and global ucount must equal the single-device engine, including the
-    cross-process candidate-overflow replay (VERDICT r2 weak #4)."""
+    cross-process candidate-overflow replay."""
     coord = f"127.0.0.1:{_free_port()}"
     script = _CLF_WORKER % {"root": ROOT, "coord": coord}
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}

@@ -1,6 +1,6 @@
 """Executed-reference parity for the two Python-2 orchestrators.
 
-The last two report paths without compiled-golden treatment (VERDICT r2 §1):
+The two report paths without compiled-golden treatment:
 ``kmer_read_m3.py`` and ``kmer_readc.py``.  No python2 exists in this image,
 so the interpreter of record is:
 

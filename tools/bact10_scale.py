@@ -5,8 +5,8 @@ The reference's production bact10 DB is ~1.5 GB of gzipped probe text
 (README.md:12) at a 2^30-cell table (newkmer_10nx.cpp:49); at the builder's
 fixed-width line format that is ~1e8 probes.  This tool builds the fpdb at
 that scale, reports its build/load times and device-table footprint, and
-measures classify throughput on one chip — the numbers VERDICT r2 missing
-item #2 asked for.  Results are written to SCALE.md + scale_report.json.
+measures classify throughput on one card.  Results are printed as JSON and
+written to .bench_cache/bact10_scale/scale_report.json.
 
 Usage: python tools/bact10_scale.py [--probes 100000000] [--reads 200000]
 """
@@ -118,8 +118,8 @@ def gen_fixture(n_probes: int, n_reads: int, read_len: int = 150):
 
 def _reference_baseline_1e8(meta) -> dict:
     """Reference reads/sec against the SAME 1e8-probe DB, unmodified binary
-    at its production table size (2^30 cells, 24 GiB) — the denominator
-    VERDICT r4 missing #3 said was absent at this scale.
+    at its production table size (2^30 cells, 24 GiB) — the denominator at
+    this scale.
 
     bench.py's methodology: ONE process loads the DB once (the ~25 min text
     parse + 24 GiB memset is excluded), then runs a tiny job + the 200k-read

@@ -1,18 +1,13 @@
 #!/usr/bin/env python
-"""Measure the chip's random-row-gather rate vs table size AND index shape.
+"""Measure the device's random-row-gather rate vs table size AND index shape.
 
-The size curve is the fp engine's design driver (PERF.md): gathers are
-transaction-bound and small tables gather several times faster than large
-ones.  It also decides the Bloom pre-filter cap (db/fpdb.BLOOM_MAX_BLOCKS):
-the filter only pays while its table gathers meaningfully faster than the
-L1 table it gates.
+The size curve bears on the fp engine's table layout and on the Bloom
+pre-filter cap (db/fpdb.BLOOM_MAX_BLOCKS): the filter pays only while one
+gather into it is cheaper than the L1/L2 gathers it saves.  On the H100 the
+interesting break is the 50 MB L2 cache (not measured yet).
 
-``--shapes`` runs the round-5 INDEX-SHAPE experiment instead: at a FIXED
-lane count, gather cost depends on the index plane's total-lane 2-adic
-divisibility — [odd, 128] layouts run 25-37% faster than [8192, K] / flat
-power-of-two shapes (1.07M lanes into 134 MB: 12.3 -> 7.7 ms; 98k lanes:
-1.55 -> 1.07 ms).  ops/lookup.take_rows exploits this for every narrow
-post-compaction gather in the engine.
+``--shapes`` times the same lane count laid out as different index shapes
+([8192, K], flat, [odd, 128], ...).
 
     python tools/gather_curve.py [--sizes-mb 2 8 16 33 67 134 268 536 1072]
     python tools/gather_curve.py --shapes
@@ -54,9 +49,9 @@ def _shape_experiment(iters: int) -> None:
 
             return jax.lax.fori_loop(0, iters, step, jnp.uint32(0))
 
-        int(np.asarray(run(tab, idx, 2)))
+        run(tab, idx, 2).block_until_ready()
         t0 = time.time()
-        int(np.asarray(run(tab, idx, iters)))
+        run(tab, idx, iters).block_until_ready()
         dt = (time.time() - t0) / iters * 1e3
         n = int(np.prod(shape))
         v2 = (n & -n).bit_length() - 1  # 2-adic valuation of the lane count
@@ -88,9 +83,7 @@ def main():
     out = {}
     for mb in args.sizes_mb:
         rows = mb * (1 << 20) // args.row_bytes
-        # host-built table shipped with device_put: a device-side
-        # arange+reshape [N, w] can pick a lane-padded layout on this chip
-        # (w -> 128) and blow the alloc at >0.5 GB sizes
+        # host-built table shipped with device_put
         tab = jax.device_put(
             np.arange(rows * w, dtype=np.uint32).reshape(rows, w)
         )
@@ -109,9 +102,9 @@ def main():
 
             return jax.lax.fori_loop(0, iters, step, jnp.uint32(0))
 
-        int(np.asarray(run(tab, idx, 2)))  # compile + warm
+        run(tab, idx, 2).block_until_ready()  # compile + warm
         t0 = time.time()
-        int(np.asarray(run(tab, idx, args.iters)))
+        run(tab, idx, args.iters).block_until_ready()
         dt = (time.time() - t0) / args.iters
         rate = q / dt / 1e6
         out[f"{mb}MB"] = round(rate, 1)
