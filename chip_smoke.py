@@ -16,7 +16,9 @@ What it does, in order:
    of one target, mixed targets, unclassified, low-quality tails, N bases)
    and one FASTA sample (50 contigs of 2-20 kb, the long-read lane).
 4. Starts the pure-Python reference simulator (tests/refsim.py) over the
-   same reads in a child process that never touches the card.
+   same reads in a child process that never touches the card.  It reads the
+   probes as step 2 generated them, before packing, so a fault in packing,
+   sorting or the artifact's I/O shows as a difference.
 5. Classifies both samples through
    ``kmer_id_tpu.cli.main(["classify-jobs", ...])`` in this process, with
    the native decoder.
@@ -124,7 +126,8 @@ def _revcomp_chars(chars: np.ndarray) -> np.ndarray:
 def make_db(work: str, n_probes: int = N_PROBES, num_targ: int = NUM_TARG,
             n_orgs: int = N_ORGS, seed: int = SEED) -> dict:
     """Write ``<work>/b10`` metadata and the packed + fingerprint artifact in
-    ``<work>/packed``.  Returns the keys, targets and parent table."""
+    ``<work>/packed``, and the generated probes in ``<work>/probes.npz`` for
+    the reference.  Returns the generated keys, targets and parent table."""
     from kmer_id_tpu.core.taxonomy import Taxonomy
     from kmer_id_tpu.db.fpdb import build_fpdb, save_fpdb
     from kmer_id_tpu.db.probes import ProbeRecords, pack_probes, save_packed
@@ -149,6 +152,8 @@ def make_db(work: str, n_probes: int = N_PROBES, num_targ: int = NUM_TARG,
     keys = keys[np.sort(rng.permutation(len(keys))[:n_probes])]
     targets = rng.integers(2, num_targ, size=len(keys)).astype(np.int32)
     n = len(keys)
+    probes = os.path.join(work, "probes.npz")
+    np.savez(probes, keys=keys, targets=targets)
     rec = ProbeRecords(
         keys=keys, target=targets,
         org=np.zeros(n, np.int32), position=np.zeros(n, np.int32),
@@ -164,7 +169,7 @@ def make_db(work: str, n_probes: int = N_PROBES, num_targ: int = NUM_TARG,
     save_fpdb(fp, cache)
     say(f"db: {len(packed)} probes, {num_targ} targets, {fp.n_slots} slots "
         f"(pack+save {t1 - t0:.1f} s, fpdb {time.time() - t1:.1f} s)")
-    return {"keys": packed.keys, "targets": packed.target,
+    return {"keys": keys, "targets": targets, "probes": probes,
             "parent": parent, "num_targ": num_targ, "cache": cache}
 
 
@@ -293,14 +298,12 @@ def reference_outputs(db: dict, samples: dict) -> dict:
     return out
 
 
-def _reference_child(conn, cache: str, parent, num_targ: int,
+def _reference_child(conn, probes: str, parent, num_targ: int,
                      samples: dict) -> None:
-    """Child-process body: the simulator over the packed artifact's keys."""
-    from kmer_id_tpu.db.probes import load_packed
-
-    packed = load_packed(cache)
-    db = {"keys": packed.keys, "targets": packed.target, "parent": parent,
-          "num_targ": num_targ}
+    """Child-process body: the simulator over the generated probes."""
+    with np.load(probes) as z:
+        db = {"keys": z["keys"], "targets": z["targets"], "parent": parent,
+              "num_targ": num_targ}
     conn.send(reference_outputs(db, samples))
     conn.close()
 
@@ -314,7 +317,7 @@ def start_reference(db: dict, samples: dict):
     recv, send = ctx.Pipe(duplex=False)
     child = ctx.Process(
         target=_reference_child,
-        args=(send, db["cache"], db["parent"], db["num_targ"], samples),
+        args=(send, db["probes"], db["parent"], db["num_targ"], samples),
     )
     child.start()
     send.close()
@@ -443,9 +446,6 @@ def main(argv=None) -> int:
     ap.add_argument("--chips", type=int, choices=(1, 4), default=1,
                     help="4: classify through the two four-card meshes only")
     ap.add_argument("--seed", type=int, default=SEED)
-    ap.add_argument("--probes", type=int, default=N_PROBES,
-                    help="DB size (the default is the bact10-scale smoke)")
-    ap.add_argument("--reads", type=int, default=N_READS)
     args = ap.parse_args(argv)
 
     from kmer_id_tpu.utils.device import setup_compile_cache
@@ -455,12 +455,10 @@ def main(argv=None) -> int:
     say(f"compile cache: {cache_dir}")
     if args.chips == 4 and dev["count"] < 4:
         raise SystemExit(f"--chips 4 needs four cards, JAX sees {dev['count']}")
-    if args.probes != N_PROBES or args.reads != N_READS:
-        say(f"reduced run: {args.probes} probes, {args.reads} reads")
     t_all = time.time()
     with tempfile.TemporaryDirectory(prefix="kmer_smoke_") as work:
-        db = make_db(work, n_probes=args.probes, seed=args.seed)
-        samples = make_samples(work, db, n_reads=args.reads, seed=args.seed)
+        db = make_db(work, seed=args.seed)
+        samples = make_samples(work, db, seed=args.seed)
         reference = start_reference(db, samples)
         if args.chips == 4:
             run_cli(work, db, 1, 4)

@@ -28,26 +28,48 @@ import jax
 from kmer_id_tpu.utils.logging import log
 
 
+_LOOPBACK = ("localhost", "127.0.0.1", "[::1]")
+
+
+def local_rank(coordinator: str | None, process_id: int | None) -> int | None:
+    """The card index this process opens on its host, or None to leave the
+    choice to JAX (and to a launcher's ``CUDA_VISIBLE_DEVICES``).
+
+    In order: the launcher's ``LOCAL_RANK``; and, when the coordinator is a
+    loopback address (every process on this host), the process id itself.
+    Across hosts the process id says nothing about the card, and JAX's own
+    cluster detection (SLURM, Open MPI) fills in the local rank where it
+    can.  The card count cannot be asked here: any device query would bring
+    up the backend before ``jax.distributed``.
+    """
+    if os.environ.get("LOCAL_RANK", "") != "":
+        return int(os.environ["LOCAL_RANK"])
+    host = (coordinator or "").rpartition(":")[0]
+    if process_id is not None and host in _LOOPBACK:
+        return process_id
+    return None
+
+
 def initialize(coordinator: str | None = None, num_processes: int | None = None,
                process_id: int | None = None) -> None:
     """Bring up the jax.distributed runtime (no-op when single-process).
 
-    One process drives one card: process ``i`` opens only card ``i`` of its
-    host (``local_device_ids``), so it neither reserves memory on its
-    siblings' cards nor sees them as local devices.  A launcher that pins
-    cards itself through ``CUDA_VISIBLE_DEVICES`` (one card per process, as
-    multi-host launchers do) is left to do so.
+    One process drives one card: each process opens only card
+    :func:`local_rank` of its host (``local_device_ids``), so it neither
+    reserves memory on its siblings' cards nor sees them as local devices.
+    A launcher that pins cards itself through ``CUDA_VISIBLE_DEVICES`` (one
+    card per process) is left to do so.
     """
     if num_processes is None or num_processes <= 1:
         return
-    local_ids = None
+    card = None
     if "CUDA_VISIBLE_DEVICES" not in os.environ:
-        local_ids = [process_id]
+        card = local_rank(coordinator, process_id)
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
-        local_device_ids=local_ids,
+        local_device_ids=None if card is None else [card],
     )
     log(
         f"distributed up: process {jax.process_index()}/{jax.process_count()}, "

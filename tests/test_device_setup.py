@@ -42,25 +42,38 @@ def test_device_summary_names_the_backend():
                  "count": len(jax.devices())}
 
 
-@pytest.mark.parametrize("launcher_pins", [False, True])
-def test_distributed_initialize_opens_own_card(launcher_pins, monkeypatch):
+@pytest.mark.parametrize("coordinator,num,pid,env,want", [
+    # one host: process i opens card i
+    ("localhost:1234", 4, 2, {}, [2]),
+    ("127.0.0.1:1234", 4, 3, {}, [3]),
+    # the launcher pins the card itself
+    ("localhost:1234", 4, 2, {"CUDA_VISIBLE_DEVICES": "3"}, None),
+    # across hosts the global id is no card index: the local rank is
+    ("10.0.0.1:1234", 8, 5, {"LOCAL_RANK": "1"}, [1]),
+    ("10.0.0.1:1234", 8, 5, {}, None),
+    # process id left to JAX's cluster detection
+    ("localhost:1234", 4, None, {}, None),
+    ("localhost:1234", 4, None, {"LOCAL_RANK": "2"}, [2]),
+])
+def test_distributed_initialize_opens_own_card(coordinator, num, pid, env,
+                                               want, monkeypatch):
     from kmer_id_tpu.parallel import distributed
 
     calls = []
     monkeypatch.setattr(jax.distributed, "initialize",
                         lambda **kw: calls.append(kw))
     monkeypatch.setattr(distributed, "log", lambda *_a, **_k: None)
-    if launcher_pins:
-        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "3")
-    else:
-        monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
-    distributed.initialize("localhost:1234", 4, 2)
-    distributed.initialize("localhost:1234", 1, 0)  # single process: no-op
+    for var in ("CUDA_VISIBLE_DEVICES", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    for var, val in env.items():
+        monkeypatch.setenv(var, val)
+    distributed.initialize(coordinator, num, pid)
+    distributed.initialize(coordinator, 1, 0)  # single process: no-op
     assert len(calls) == 1
     kw = calls[0]
     assert (kw["coordinator_address"], kw["num_processes"],
-            kw["process_id"]) == ("localhost:1234", 4, 2)
-    assert kw["local_device_ids"] == (None if launcher_pins else [2])
+            kw["process_id"]) == (coordinator, num, pid)
+    assert kw["local_device_ids"] == want
 
 
 def test_chip_smoke_phases_tiny(tmp_path):
@@ -87,9 +100,37 @@ def test_chip_smoke_phases_tiny(tmp_path):
         chip_smoke.compare(work, bad, "cpu")
 
 
+@pytest.mark.parametrize("fault", ["drop", "retarget"])
+def test_chip_smoke_catches_a_packing_fault(fault, tmp_path, monkeypatch):
+    """The reference reads the probes as generated, not the packed artifact,
+    so a packing fault that loses or re-targets probes fails the comparison."""
+    from kmer_id_tpu.db import probes as P
+
+    real = P.pack_probes
+
+    def faulty(rec, num_targ):
+        keep = np.arange(len(rec.keys)) % 2 == 0 if fault == "drop" else slice(None)
+        target = rec.target if fault == "drop" else rec.target % (num_targ - 2) + 2
+        return real(P.ProbeRecords(
+            keys=rec.keys[keep], target=target[keep], org=rec.org[keep],
+            position=rec.position[keep], fstrand=rec.fstrand[keep],
+            count=rec.count[keep]), num_targ=num_targ)
+
+    monkeypatch.setattr(P, "pack_probes", faulty)
+    work = str(tmp_path)
+    db = chip_smoke.make_db(work, n_probes=20_000, num_targ=64, n_orgs=100,
+                            seed=6)
+    samples = chip_smoke.make_samples(work, db, n_reads=300, n_contigs=2,
+                                      contig_len=(400, 800), seed=6)
+    chip_smoke.run_cli(work, db, batch=256, max_len=160)
+    with pytest.raises(SystemExit, match="differs from the reference"):
+        chip_smoke.compare(work, chip_smoke.reference_outputs(db, samples),
+                           "cpu")
+
+
 def test_chip_smoke_refuses_cpu(capsys, restore_cache_dir):
     with pytest.raises(SystemExit) as e:
-        chip_smoke.main(["--probes", "1000", "--reads", "10"])
+        chip_smoke.main([])
     assert "GPU" in str(e.value)
     out = capsys.readouterr().out
     assert '"ok"' not in out

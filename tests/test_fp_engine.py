@@ -104,13 +104,14 @@ def test_fp_engine_matches_refsim_on_gpu(world, gpu):
     records = make_reads(kmap, n=300, read_len=90)
     sim = RefSim(kmap, parent, num_targ=8, u_is_t=False)
     sim.feed(records)
-    with jax.default_device(gpu):
-        cfg = ClassifyConfig.preset("nx", num_targ=8, batch_size=64, max_len=96)
-        clf = FpClassifier(packed, tax, batch_size=64, max_len=96)
-        assert clf._db["rec"].devices() == {gpu}
-        sp = SampleProcessor(clf, cfg)
-        sp.feed(records)
-        res = sp.finish()
+    cfg = ClassifyConfig.preset("nx", num_targ=8, batch_size=64, max_len=96)
+    clf = FpClassifier(packed, tax, batch_size=64, max_len=96)
+    assert clf._db["rec"].devices() == {gpu}
+    assert clf.new_seen().devices() == {gpu}
+    sp = SampleProcessor(clf, cfg)
+    sp.feed(records)
+    res = sp.finish()
+    assert res.reads == sim.reads
     assert res.gcount.tolist() == sim.gcount
     assert res.ucount.tolist() == sim.ucount
 
